@@ -19,8 +19,8 @@ from genome_tpu.params import AssemblyParams
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="genome_tpu",
-        description="TPU-native de novo genome assembler (winger/genome "
-                    "capability set, built on JAX/XLA/Pallas)")
+        description="de novo genome assembler (winger/genome capability "
+                    "set, built on JAX/XLA)")
     p.add_argument("reads", nargs="+", help="FASTA/FASTQ input file(s), .gz ok")
     p.add_argument("-o", "--output", default="contigs.fasta",
                    help="output FASTA path (default: %(default)s; .gz ok)")
@@ -45,14 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--counter",
                    choices=["sort", "bucket", "hashtable"],
                    default="sort",
-                   help="counting kernel: global sort+segmented-reduce "
-                        "(default and fastest — a Pallas partition counter "
-                        "was measured break-even at best, BENCH.md), "
-                        "bucket-partition sort, or batched open-addressing "
-                        "HBM hash table (parity oracle; ~0.6 M k-mers/s — "
-                        "100x slower than sort, unusable beyond toy inputs)")
+                   help="counting engine: global sort + run-length "
+                        "encoding (default), bucket-partition sort, or a "
+                        "batched open-addressing hash table in device "
+                        "memory")
     p.add_argument("--backend", choices=["device", "golden"], default="device",
-                   help="device = JAX/TPU pipeline, golden = NumPy reference")
+                   help="device = JAX pipeline, golden = NumPy reference")
     p.add_argument("--io", choices=["native", "python"], default="native",
                    help="input parser: native C++ fast path (if built) or "
                         "pure Python (golden backend always uses python)")
@@ -83,11 +81,16 @@ def main(argv: list[str] | None = None) -> int:
 
     metrics = Metrics(path=args.metrics, quiet=args.quiet)
     use_native = args.io == "native" and args.backend == "device"
+    if args.backend == "device":
+        from genome_tpu.runtime import enable_compile_cache
+        enable_compile_cache()
     t0 = _time.perf_counter()
     try:
         if use_native:
             import numpy as np
-            from genome_tpu.io.native import parse_fastx_codes
+            from genome_tpu.io.native import (native_available,
+                                              parse_fastx_codes)
+            use_native = native_available()
             mats = [parse_fastx_codes(p) for p in args.reads]
             L = max((m.shape[1] for m in mats), default=0)
             rows = sum(m.shape[0] for m in mats)
@@ -107,13 +110,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     metrics.log("phase_end", phase="read_input",
                 wall_s=round(_time.perf_counter() - t0, 4),
-                n_reads=n_reads, total_bp=total_bp)
-
-    if args.counter == "hashtable" and total_bp > 5_000_000:
-        print("warning: --counter hashtable is a parity oracle "
-              "(~0.6 M k-mers/s); expect ~{:.0f} min for this input. "
-              "Use --counter sort.".format(
-                  total_bp / 0.6e6 / 60), file=sys.stderr)
+                n_reads=n_reads, total_bp=total_bp, native=use_native)
 
     if args.resume and not args.checkpoint_dir:
         print("error: --resume requires --checkpoint-dir", file=sys.stderr)
@@ -129,7 +126,7 @@ def main(argv: list[str] | None = None) -> int:
         # without --resume, checkpoints are written but never read back.
         # The manifest pins the device topology and an input digest so a
         # resume against a changed mesh or modified reads is rejected
-        # instead of silently producing wrong contigs (ADVICE r4).
+        # instead of silently producing wrong contigs.
         ndev = digest = None
         if args.checkpoint_dir:
             import jax

@@ -1,7 +1,7 @@
 """Structured metrics/observability (SURVEY.md §5.5).
 
-JSONL events (phase, wall seconds, throughput, sizes) — exactly the
-quantities the baseline grades (k-mers/s/chip, reads/s; BASELINE.json:2).
+JSONL events (phase, wall seconds, throughput, sizes): k-mers/s per
+device, reads/s, per-phase walls.
 """
 
 from __future__ import annotations

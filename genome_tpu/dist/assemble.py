@@ -1,4 +1,4 @@
-"""T3/T4: partitioned assembly driver (SURVEY.md §3.4; BASELINE.json:11).
+"""T3/T4: partitioned assembly driver (SURVEY.md §3.4).
 
 reads --DP split--> per-shard extraction (host->device)
       --all_to_all #1--> sharded counting at k-mer owners
@@ -40,8 +40,8 @@ def _default_mesh(num_shards: int) -> Mesh:
 
 
 def shard_reads(reads: list[str], num_shards: int) -> list[list[str]]:
-    """Contiguous DP split of the read set (BASELINE.json:5 'read batches
-    stream data-parallel'). Output is invariant to the split (CI-tested)."""
+    """Contiguous DP split of the read set (read batches
+    stream data-parallel). Output is invariant to the split (CI-tested)."""
     per = (len(reads) + num_shards - 1) // num_shards
     return [reads[i * per : (i + 1) * per] for i in range(num_shards)]
 
@@ -160,7 +160,7 @@ def assemble_sharded(reads: list[str], params: AssemblyParams | None = None,
                         node_primary=True)
                 info["n_contigs"] = len(contigs)
             # per-program collective/byte costs x invocation counts: the
-            # scaling-evidence record (BASELINE.json:5 70%-at-2-hosts)
+            # scaling-evidence record
             metrics.log("exchange_ledger", **LEDGER.summary())
             return contigs
         metrics.log("dist_final_overflow_fallback")

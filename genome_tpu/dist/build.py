@@ -1,5 +1,5 @@
 """T3: sharded de Bruijn graph build — boundary k-mer exchange
-(SURVEY.md §3.4; BASELINE.json:5 "boundary k-mers exchange via all_to_all").
+(SURVEY.md §3.4: boundary k-mers exchange via all_to_all).
 
 Each shard owns a sorted local table of canonical k-mers. To build the
 successor array it must probe extensions whose canonical form is owned by
@@ -7,7 +7,7 @@ successor array it must probe extensions whose canonical form is owned by
 #1), answered by a local binary search at the owner, and the response
 buffer is exchanged back (all_to_all #2) — positions in the bucket are
 preserved, so responses land exactly in their query's slot. This is the
-TPU-native mirror of `PartitionedDNAMap`'s cross-host probe.
+device-mesh mirror of `PartitionedDNAMap`'s cross-host probe.
 
 Global oriented node id: v = 2 * (shard * local_capacity + j) + s.
 """

@@ -1,7 +1,7 @@
 """T3: sharded k-mer counting over a device mesh (SURVEY.md §3.4).
 
 Reference analog: `PartitionedDNAMap` inserts routed to owner hosts
-(BASELINE.json:5). TPU-native: every shard extracts k-mers from its own
+Here every shard extracts k-mers from its own
 read shard (data parallel), buckets them by owner hash, and one
 `all_to_all` over the mesh delivers each bucket to its owner, which then
 counts locally with the sort+segmented-reduce kernel. Bucket capacities
@@ -58,7 +58,7 @@ def route_buckets(vals: tuple, owner, num_shards: int, bucket_cap: int,
     # ONE all_to_all for all arrays: buffers are stacked column-wise to
     # [S, len(vals)*cap] so the exchange count is independent of payload
     # arity (same bytes on the wire, k-1 fewer collective launches — the
-    # latency term that dominates DCN-bound rounds). Row i of the result
+    # latency term that dominates small cross-host rounds). Row i of the result
     # is what shard i sent, with each array in its own column section.
     bufs = []
     for v in vals:

@@ -31,6 +31,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from genome_tpu.dist.count import route_buckets
 from genome_tpu.dist.ledger import LEDGER
 from genome_tpu.dist.partition import _fmix32_jnp
+from genome_tpu.kernels.compact import compact
 from genome_tpu.kernels.extract import SENTINEL
 from genome_tpu.utils import dna
 
@@ -39,18 +40,6 @@ U32 = jnp.uint32
 
 BLOCK = 1024           # chain positions per emission block (% 16 == 0)
 _LOG_B = BLOCK.bit_length() - 1
-
-
-def _compact_scatter(flags, vals, M: int):
-    """In-order extraction of flagged elements into M slots (plain jnp;
-    safe under shard_map on every backend). Returns (outs, n, overflow)."""
-    n = flags.shape[0]
-    dest = jnp.cumsum(flags.astype(I32)) - 1
-    scat = jnp.where(flags & (dest < M), dest, M)
-    outs = tuple(jnp.zeros((M,), v.dtype).at[scat].set(v, mode="drop")
-                 for v in vals)
-    total = flags.sum(dtype=I32)
-    return outs, total, total > M
 
 
 def make_sharded_emit(mesh: Mesh, axis: str, local_capacity: int,
@@ -100,7 +89,7 @@ def make_sharded_emit(mesh: Mesh, axis: str, local_capacity: int,
         ovf = ovf | (n_blocks > block_cap)
 
         # per-block metadata (compacted to block_cap slots)
-        (bhead, bblk), _, _ = _compact_scatter(first, (s1, sblk), block_cap)
+        (bhead, bblk), _, _, _ = compact(first, (s1, sblk), block_cap)
         bcnt = jax.ops.segment_sum(
             valid.astype(I32), jnp.where(valid, brank, block_cap),
             num_segments=block_cap + 1)[:block_cap]
@@ -123,7 +112,7 @@ def make_sharded_emit(mesh: Mesh, axis: str, local_capacity: int,
         (ghid, ghh, ghl), _, o2 = route_buckets(
             (head.astype(U32), okv_hi, okv_lo), owner0, S, hcap_send, axis)
         hvalid = ghid != SENTINEL
-        (hid, hh, hl), n_heads, o3 = _compact_scatter(
+        (hid, hh, hl), _, n_heads, o3 = compact(
             hvalid, (ghid, ghh, ghl), head_cap)
         ovf = ovf | o2 | o3
 

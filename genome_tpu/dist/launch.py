@@ -1,6 +1,6 @@
 """Multi-process SPMD worker/launcher for partitioned assembly.
 
-Worker (one per host/process; BASELINE.json:11 analog):
+Worker (one per host/process):
 
     python -m genome_tpu.dist.launch --coordinator host0:12355 \
         --num-processes 2 --process-id 0 reads.fastq -o contigs.fasta
@@ -8,9 +8,12 @@ Worker (one per host/process; BASELINE.json:11 analog):
 Each process reads the SAME input file and takes its own contiguous read
 shard (process_id-th of num_processes); process 0 writes the output.
 For the localhost fake-cluster CI pattern (SURVEY §4.5), run every
-process on one machine with JAX_PLATFORMS=cpu.
+process on one machine with JAX_PLATFORMS=cpu. Several processes on one
+GPU host each open their own card: `--local-device-ids <process_id>`
+(a JAX process reserves most of a card's memory, so two processes cannot
+share one).
 
-Scaling bench (BASELINE.json:5 "reads/s efficiency at >= 2 hosts"): add
+Scaling bench (reads/s efficiency at >= 2 hosts): add
 `--bench --bench-out scaling.jsonl`. Each process then assembles twice
 (first run pays compile; the second is timed), and every process appends
 one JSON line: reads/s for its shard, aggregate reads/s, per-phase wall
@@ -27,6 +30,8 @@ import json
 import os
 import sys
 import time
+
+from genome_tpu.runtime import enable_compile_cache, parse_device_ids
 
 
 def _load_local_shard(paths, pid: int, num_processes: int):
@@ -62,6 +67,13 @@ def _load_local_shard(paths, pid: int, num_processes: int):
     return out
 
 
+def _device_ids(text: str) -> list[int]:
+    try:
+        return parse_device_ids(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="genome_tpu.dist.launch")
     p.add_argument("reads", nargs="+")
@@ -73,6 +85,10 @@ def main(argv=None) -> int:
     p.add_argument("--min-coverage", type=int, default=2)
     p.add_argument("--cpu-devices", type=int, default=0,
                    help="force N virtual CPU devices (testing)")
+    p.add_argument("--local-device-ids", type=_device_ids, default=None,
+                   help="comma-separated local GPU ids this process opens "
+                        "(e.g. its process id when each process on a host "
+                        "takes one card; default: every local card)")
     p.add_argument("--bench", action="store_true",
                    help="time a second (compile-warm) assembly and emit "
                         "a reads/s JSON line per process")
@@ -101,7 +117,9 @@ def main(argv=None) -> int:
     import jax
     if args.cpu_devices:
         jax.config.update("jax_platforms", "cpu")
-    initialize(args.coordinator, args.num_processes, args.process_id)
+    enable_compile_cache()
+    initialize(args.coordinator, args.num_processes, args.process_id,
+               local_device_ids=args.local_device_ids)
 
     from genome_tpu.params import AssemblyParams
 
@@ -116,7 +134,7 @@ def main(argv=None) -> int:
                                                     input_digest)
         # pin total device count (owner hashing is per DEVICE, not per
         # process) and the local read-shard digest so resume under a
-        # different topology or modified input is rejected (ADVICE r4)
+        # different topology or modified input is rejected
         ckpt = PhaseCheckpointer(args.checkpoint_dir, params,
                                  shard=args.process_id,
                                  num_shards=args.num_processes,

@@ -1,6 +1,6 @@
 """Exchange ledger: per-program collective/byte accounting (SURVEY §5.5).
 
-The ≥70%-at-2-hosts scaling target (BASELINE.json:5) needs EVIDENCE: how
+A multi-host scaling claim needs EVIDENCE: how
 many collectives each sharded program issues and how many bytes ride the
 wire per invocation. Collectives live inside jitted shard_map bodies, so
 runtime Python counters never see them — but every body executes exactly

@@ -4,7 +4,8 @@ Reference analog: `PartitionedDNAMap`'s JVM cluster — here it is
 `jax.distributed.initialize()` + one global mesh over every chip of every
 host; the shard_map programs in dist/count.py and dist/build.py are
 already SPMD, so they run unchanged over a process-spanning mesh with the
-all_to_all collectives riding ICI within a host and DCN across hosts.
+all_to_all collectives riding NVLink within a host and the network
+across hosts.
 
 Per-process flow (SPMD, every host runs the same program on its read
 shard):  local reads -> extract -> global sharded arrays
@@ -29,15 +30,15 @@ from genome_tpu.params import AssemblyParams
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
-               local_device_count: int | None = None) -> None:
-    """jax.distributed bootstrap (call before any jax backend use)."""
+               local_device_ids: list[int] | None = None) -> None:
+    """jax.distributed bootstrap (call before any jax backend use).
+
+    local_device_ids: the local cards this process opens (None = all)."""
     import jax
-    kwargs = {}
-    if local_device_count is not None:
-        kwargs["local_device_ids"] = list(range(local_device_count))
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id, **kwargs)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
 
 
 def assemble_multihost(local_reads, params: AssemblyParams | None = None,

@@ -1,7 +1,7 @@
 """T3: hash partition of the canonical k-mer key space (SEMANTICS §6b).
 
 Reference analog: `PartitionedDNAMap`'s `owner(kmer) = hash(kmer) mod P`
-(BASELINE.json:5, SURVEY.md §2.1 R4). Pin: murmur3 fmix32 over the mixed
+(SURVEY.md §2.1 R4). Pin: murmur3 fmix32 over the mixed
 uint32 pair; P must be a power of two. The choice is output-invisible
 (contigs are P-invariant) but must be identical across shards.
 """

@@ -33,6 +33,7 @@ from genome_tpu.dist.count import route_buckets
 from genome_tpu.dist.ledger import LEDGER, record_a2a, record_psum
 from genome_tpu.dist.partition import _fmix32_jnp
 from genome_tpu.kernels import u64
+from genome_tpu.kernels.compact import compact
 from genome_tpu.kernels.extract import SENTINEL
 
 I32 = jnp.int32
@@ -189,17 +190,6 @@ def make_ops(axis: str, num_shards: int, cl2: int):
 def _paired(v):
     """[cl2] array -> ([cl], [cl]) even/odd slots, for rc-pair gathers."""
     return v[0::2], v[1::2]
-
-
-def _compact(flags, vals, M: int):
-    """In-order extraction of flagged elements into M slots (plain jnp,
-    shard_map-safe). Returns (outs, n, overflow)."""
-    dest = jnp.cumsum(flags.astype(I32)) - 1
-    scat = jnp.where(flags & (dest < M), dest, M)
-    outs = tuple(jnp.zeros((M,), v.dtype).at[scat].set(v, mode="drop")
-                 for v in vals)
-    total = flags.sum(dtype=I32)
-    return outs, total, total > M
 
 
 def _degrees_links(succ, alive_o, remote_gather, gcap4, gcap1):
@@ -425,7 +415,7 @@ def make_sharded_simplify(mesh: Mesh, axis: str, local_capacity: int,
         ids_c = jnp.arange(cl, dtype=I32)
         alive2_o = jnp.repeat(alive2 & valid_node, 2)
 
-        (kc,), nk, kovf = _compact(killed_c, (ids_c,), kill_md)
+        (kc,), _, nk, kovf = compact(killed_c, (ids_c,), kill_md)
         real = jnp.arange(kill_md, dtype=I32) < jnp.minimum(nk, kill_md)
         kcc = jnp.clip(jnp.where(real, kc, 0), 0, cl - 1)
         rows = jnp.concatenate([succ[2 * kcc], succ[2 * kcc + 1]],
@@ -598,7 +588,7 @@ def make_sharded_simplify(mesh: Mesh, axis: str, local_capacity: int,
         # sort run at candidate scale, not id-space scale. Overflow
         # (> bub_mc candidates) rides the normal slack-retry ladder,
         # which doubles bub_mc with the routing capacities.
-        (kp, ks, kch, kcl, koh, kol, kid), nkeep, kovf_c = _compact(
+        (kp, ks, kch, kcl, koh, kol, kid), _, nkeep, kovf_c = compact(
             keep, (p.astype(U32), s.astype(U32), ~st["cov_hi"],
                    ~st["cov_lo"], okv_hi, okv_lo,
                    st["ids_g"].astype(U32)), bub_mc)

@@ -1,12 +1,12 @@
 """Golden NumPy assembler: vectorized CPU implementation of SEMANTICS.md.
 
-This is the parity oracle for the TPU pipeline (SURVEY.md §7 milestone 1,
-BASELINE.json:7 "single-host CPU reference run"). It mirrors the reference
-pipeline (count -> de Bruijn -> simplify -> contigs, BASELINE.json:5) with
+This is the parity oracle for the device pipeline (SURVEY.md §7 milestone
+1, the single-host CPU reference run). It mirrors the reference pipeline
+(count -> de Bruijn -> simplify -> contigs) with
 array algorithms: sort/unique counting (replacing the reference `DNAMap`
 open-addressing inserts), binary-search successor probing, and
 pointer-doubling chain computation — structurally the same algorithms the
-TPU path uses, but independently implemented and validated against the
+device path uses, but independently implemented and validated against the
 pure-Python tiny oracle.
 """
 

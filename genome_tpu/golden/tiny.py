@@ -1,9 +1,9 @@
 """Tiny oracle: pure-Python, string/dict de novo assembler.
 
 Maximum-clarity implementation of SEMANTICS.md, used only in tests to
-validate the NumPy golden assembler (which in turn validates the TPU
-pipeline). Reference pipeline shape: BASELINE.json:5 (count -> de Bruijn
-graph -> tips/bubbles/compaction -> contigs). O(N) dicts — small inputs only.
+validate the NumPy golden assembler (which in turn validates the device
+pipeline). Reference pipeline shape: count -> de Bruijn graph ->
+tips/bubbles/compaction -> contigs. O(N) dicts — small inputs only.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """T2: de Bruijn graph construction on device (SURVEY.md §2.4, §3.1).
 
 Reference analog: for each surviving k-mer, probe which of the <=4
-single-base extensions also survive (`DNAMap.contains`, BASELINE.json:5).
-TPU-native: vectorized binary search of all 8N extension queries (2
+single-base extensions also survive (`DNAMap.contains`).
+Here: vectorized binary search of all 8N extension queries (2
 orientations x 4 bases) over the sorted canonical table — no hash probes,
-pure batched gathers that XLA pipelines over HBM.
+pure batched gathers that XLA pipelines over device memory.
 
 Output: succ[2N, 4] int32 oriented successor ids (-1 = absent), where
 oriented id v = 2*i + s (SEMANTICS §3). Table slots beyond n_unique yield
@@ -89,8 +89,8 @@ def build_graph_bsearch(table_hi, table_lo, n_unique, k: int):
     """Graph build by per-query binary search (8C x log C random gathers).
 
     Simple and the basis of the sharded boundary-probe path; for large
-    single-chip tables build_graph_join is ~an order of magnitude faster
-    (gathers are the bottleneck on TPU — BENCH.md)."""
+    single-device tables the join builds avoid its chains of dependent
+    random gathers."""
     capacity = table_hi.shape[0]
     okv_hi, okv_lo, valid_o, chs, cls, orients = _extension_queries(
         table_hi, table_lo, n_unique, k)
@@ -108,13 +108,13 @@ def build_graph_bsearch(table_hi, table_lo, n_unique, k: int):
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def build_graph_join(table_hi, table_lo, n_unique, k: int):
-    """Graph build as a sort-merge membership join (TPU fast path).
+    """Graph build as a sort-merge membership join.
 
     Instead of 8C independent binary searches (each a chain of random
-    gathers — the measured bottleneck), concatenate the table entries with
+    gathers), concatenate the table entries with
     all extension queries, sort once, and resolve each query against the
-    table record at its equal-key run head. Sorting is the fast primitive
-    on TPU; random access is not (BENCH.md measurements).
+    table record at its equal-key run head: one sort in place of chains
+    of dependent random gathers.
     """
     capacity = table_hi.shape[0]
     n2 = 2 * capacity
@@ -239,37 +239,13 @@ def build_graph_kjoin(table_hi, table_lo, n_unique, k: int):
     # (a sentinel B record can't exist: valid_o masked both sides)
     succ_rows = jnp.where((~is_b)[:, None] & (sh_ != sent)[:, None],
                           bcast, -1)
-    # Route rows to succ[u] by SORTING on the oriented id, not scattering:
-    # every id 0..n2-1 occurs exactly once as a suffix record (B records
-    # key to n2 and fall off the end), so sorted position == row index.
-    # XLA's row scatter runs ~50 M elem/s on TPU; this sort is ~10x faster.
-    # On TPU, first drop the B records with the Pallas compactor (halves
-    # the sort-back input).
+    # Route rows to succ[u] by SORTING on the oriented id: every id
+    # 0..n2-1 occurs exactly once as a suffix record (B records key to n2
+    # and fall off the end), so sorted position == row index.
     a_oid = jnp.where(~is_b, vid, n2)
-    cols = [succ_rows[:, b] for b in range(4)]
-    from genome_tpu.kernels.count import _on_tpu
-    if _on_tpu():
-        from genome_tpu.kernels.compact import CHUNK, TILE, compact_flagged
-        mp = -(-m // TILE) * TILE
-        pad = mp - m
-        if pad:
-            zb = jnp.zeros((pad,), jnp.bool_)
-            zi = jnp.zeros((pad,), I32)
-            flags = jnp.concatenate([~is_b, zb])
-            a_oid = jnp.concatenate([a_oid, zi])
-            cols = [jnp.concatenate([cx, zi]) for cx in cols]
-        else:
-            flags = ~is_b
-        cap_a = -(-n2 // CHUNK) * CHUNK + CHUNK
-        (a_oid, c0, c1, c2, c3), _, _, _ = compact_flagged(
-            flags, (a_oid,) + tuple(cols), cap_a)
-        o = jax.lax.sort((a_oid[:n2], c0[:n2], c1[:n2], c2[:n2], c3[:n2]),
-                         num_keys=1)
-        succ = jnp.stack([o[1], o[2], o[3], o[4]], axis=1)
-    else:
-        o = jax.lax.sort((a_oid, cols[0], cols[1], cols[2], cols[3]),
-                         num_keys=1)
-        succ = jnp.stack([o[1][:n2], o[2][:n2], o[3][:n2], o[4][:n2]], axis=1)
+    o = jax.lax.sort((a_oid,) + tuple(succ_rows[:, b] for b in range(4)),
+                     num_keys=1)
+    succ = jnp.stack([o[1][:n2], o[2][:n2], o[3][:n2], o[4][:n2]], axis=1)
     return succ, okv_hi, okv_lo
 
 

@@ -1,7 +1,7 @@
-"""T2: graph simplification under jit (SURVEY.md §3.3, BASELINE.json:5).
+"""T2: graph simplification under jit (SURVEY.md §3.3).
 
 Reference analog: worklist/DFS tip clipping, bubble popping and unitig
-compaction mutating a JVM object graph. TPU-native: data-parallel masked
+compaction mutating a JVM object graph. Here: data-parallel masked
 passes over static-capacity arrays — chain decomposition is pointer
 *doubling* (O(log n) gather rounds instead of sequential walks), tips and
 bubbles are per-chain predicates + scatter kills, and the fixpoint loop
@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from genome_tpu.kernels import u64
+from genome_tpu.kernels.compact import compact
 
 I32 = jnp.int32
 U32 = jnp.uint32
@@ -253,11 +254,10 @@ def pop_bubbles_pass_dense(succ, okv_hi, okv_lo, counts, alive, valid_node,
 #
 # Tips and bubbles only ever act on chains of length <= tip_len/bubble_len
 # (~2k+1 nodes), yet the dense passes pay O(rounds) full-array gathers over
-# all 2C oriented nodes per pass — the measured e2e wall (~8-14 s/pass at
-# E. coli scale, PLAN.md). The number of CHAINS is tiny by comparison
+# all 2C oriented nodes per pass. The number of CHAINS is tiny by comparison
 # (#unitigs ~ 1e4 on a filtered E. coli graph), so instead: compute degrees
 # and links once (vector ops + a few full gathers), compact the chain HEAD
-# ids to an M-slot buffer (Pallas stream compaction on TPU), walk forward
+# ids to an M-slot buffer (kernels/compact.py), walk forward
 # <= L steps on M-sized arrays recording the path, evaluate the identical
 # SEMANTICS §5 predicates on the compacted candidates, and kill doomed
 # chains with one scatter over the recorded paths. Exactly the dense
@@ -268,15 +268,6 @@ def pop_bubbles_pass_dense(succ, okv_hi, okv_lo, counts, alive, valid_node,
 # ---------------------------------------------------------------------------
 
 _WALK_M = (65536, 262144)  # candidate-buffer escalation ladder
-
-
-def _compact_ids(flags, M: int):
-    """Positions of set flags, compacted to an M-slot id buffer (in order).
-
-    Moved to kernels.compact.compact_ids (shared with device emission);
-    kept as an alias for the walk passes and existing tests."""
-    from genome_tpu.kernels.compact import compact_ids
-    return compact_ids(flags, M)
 
 
 def _walk_stats(next_u, counts, heads, n_heads, L: int, want_cov: bool):
@@ -343,7 +334,7 @@ def _tips_body(succ, okv_hi, okv_lo, counts, alive, valid_node, outdeg,
     n2 = 2 * capacity
     alive_o = jnp.repeat(alive & valid_node, 2)
     is_head = alive_o & (prev_u < 0)
-    heads, n_heads, ovf = _compact_ids(is_head, M)
+    _, heads, n_heads, ovf = compact(is_head, (), M)
     st = _walk_stats(next_u, counts, heads, n_heads, L, want_cov=False)
     h = jnp.where(st["real"], heads, 0)
     tail = st["tail"]
@@ -373,7 +364,7 @@ def _bubbles_body(succ, okv_hi, okv_lo, counts, alive, valid_node, outdeg,
     n2 = 2 * capacity
     alive_o = jnp.repeat(alive & valid_node, 2)
     is_head = alive_o & (prev_u < 0)
-    heads, n_heads, ovf = _compact_ids(is_head, M)
+    _, heads, n_heads, ovf = compact(is_head, (), M)
     st = _walk_stats(next_u, counts, heads, n_heads, L, want_cov=True)
     h = jnp.where(st["real"], heads, 0)
     tail = st["tail"]
@@ -488,9 +479,8 @@ def pop_bubbles_pass(succ, okv_hi, okv_lo, counts, alive, valid_node,
 
 # ---------------------------------------------------------------------------
 # Incremental degree maintenance (round-3). Each walk pass used to pay a
-# full [2C, 4] alive-gather to recompute (outdeg, usucc) from scratch —
-# ~0.3 s/pass at E. coli scale, even for the final verification round
-# that kills nothing. Kills per pass are tiny by comparison, and a kill
+# full [2C, 4] alive-gather to recompute (outdeg, usucc) from scratch,
+# even for the final verification round that kills nothing. Kills per pass are tiny by comparison, and a kill
 # only changes the degrees of the dead nodes' in-neighbors (reachable by
 # RC symmetry: in-neighbors of v = rc(successors of rc(v))), so the loop
 # now carries (outdeg, usucc) across passes and updates just the
@@ -500,27 +490,6 @@ def pop_bubbles_pass(succ, okv_hi, okv_lo, counts, alive, valid_node,
 # ---------------------------------------------------------------------------
 
 _KILL_M = 65536  # compacted killed-node capacity; overflow -> dense recompute
-
-
-def _compact_vals(flags, vals, M: int):
-    """Values at flagged positions, compacted to M slots (in order)."""
-    from genome_tpu.kernels.count import _on_tpu
-    n = flags.shape[0]
-    if _on_tpu():
-        from genome_tpu.kernels.compact import CHUNK, TILE, compact_flagged
-        npad = -(-n // TILE) * TILE
-        if npad != n:
-            flags = jnp.concatenate(
-                [flags, jnp.zeros((npad - n,), jnp.bool_)])
-            vals = jnp.concatenate([vals, jnp.zeros((npad - n,), vals.dtype)])
-        cap = -(-M // CHUNK) * CHUNK + CHUNK
-        (v,), _, total, _ = compact_flagged(flags, (vals,), cap)
-        return v[:M], total, total > M
-    dest = jnp.cumsum(flags.astype(I32)) - 1
-    scat = jnp.where(flags & (dest < M), dest, M)
-    out = jnp.zeros((M,), dtype=vals.dtype).at[scat].set(vals, mode="drop")
-    total = flags.sum(dtype=I32)
-    return out, total, total > M
 
 
 def _update_degrees(succ, alive2, valid_node, path, doomed_m, outdeg, usucc,
@@ -542,7 +511,7 @@ def _update_degrees(succ, alive2, valid_node, path, doomed_m, outdeg, usucc,
     n2 = succ.shape[0]
     kill = doomed_m[None, :] & (path >= 0)
     canon = jnp.where(kill, path >> 1, 0).reshape(-1).astype(I32)
-    kc, nk, kovf = _compact_vals(kill.reshape(-1), canon, Mk)
+    (kc,), _, nk, kovf = compact(kill.reshape(-1), (canon,), Mk)
     real = jnp.arange(Mk, dtype=I32) < jnp.minimum(nk, Mk)
     # DEDUP: a self-RC chain's walk path can visit both orientations of
     # one canonical node; without dedup its lost edges would be
@@ -579,7 +548,7 @@ def _update_degrees(succ, alive2, valid_node, path, doomed_m, outdeg, usucc,
     # ---- incremental next/prev links (docstring rule) ----
     M2 = 2 * Mk
     aff0 = jnp.concatenate([tgt.reshape(-1), dead.reshape(-1)])
-    ac, n_aff, lovf = _compact_vals(aff0 < n2, aff0, M2)
+    (ac,), _, n_aff, lovf = compact(aff0 < n2, (aff0,), M2)
     areal = jnp.arange(M2, dtype=I32) < jnp.minimum(n_aff, M2)
     acc = jnp.clip(jnp.where(areal, ac, 0), 0, n2 - 1)
     sa = succ[acc]                                   # [M2, 4]
@@ -669,7 +638,7 @@ def run_pass_inc(kind: str, succ, okv_hi, okv_lo, counts, alive, valid_node,
 
 #
 # Full pointer doubling costs log2(n2) rounds of two full-size dependent
-# gathers — the measured 7 s wall of the final phase at E. coli scale.
+# gathers over every oriented node.
 # Chains only need exact (head, dist) at EMISSION, and ranking a linked
 # list has a classical two-level decomposition: pick a ruler set (every
 # RULER_STRIDE-th oriented id — ids are sorted-k-mer ranks, so ruler
@@ -737,8 +706,8 @@ def _phase1_unpacked(prev_u, rounds: int, mask):
 def _phase1_packed(prev_u, rounds: int, stride: int, d_bits: int):
     """Phase-1 doubling with (p, d) PACKED into one uint32 (p in bits
     [0, 32-d_bits), d saturating at 2^d_bits - 1 above): ONE gather per
-    round instead of two — the doubling gathers are the final phase's
-    measured wall. Returns (p, d): d values below the saturation cap are
+    round instead of two — the doubling gathers dominate the final
+    phase. Returns (p, d): d values below the saturation cap are
     exact (saturation is monotone — a clamped ancestor distance can only
     clamp the dependent sums); saturated slots are repaired by
     _phase1_sat_fixup or the unpacked redo. Caller guarantees
@@ -914,9 +883,8 @@ _P1_ROUNDS = 12  # covers ruler gaps <= 4096; P(gap > 4096) ~ n2*(15/16)^4096
 
 def _rank_rulers_unrolled(next_u, prev_u):
     """_rank_rulers with both doubling phases UNROLLED to fixed round
-    counts (no lax.while_loop): the loop-carried q[q] gathers inside
-    while_loop run at ~half the standalone gather rate (PLAN.md simplify
-    decomposition), and each round's convergence reduction adds a
+    counts (no lax.while_loop): loop-carried q[q] gathers inside a
+    while_loop cannot be software-pipelined, and each round's convergence reduction adds a
     dependency. Fixed rounds let XLA software-pipeline the gather chain.
 
     Phase 1 runs _P1_ROUNDS rounds; insufficiency (a ruler gap > 2^rounds,
@@ -980,8 +948,7 @@ def _final_chain_state_links(succ, okv_hi, okv_lo, counts, alive,
         # one tiny scatter replace a full-size scatter + two full-size
         # okv gathers. Tail overflow (> _TAIL_M chains) falls back to the
         # full-size computation inside this same branch.
-        from genome_tpu.kernels.compact import compact_ids
-        tails, _n_t, tovf = compact_ids(is_tail, _TAIL_M)
+        _, tails, _n_t, tovf = compact(is_tail, (), _TAIL_M)
         treal = jnp.arange(_TAIL_M, dtype=I32) < jnp.minimum(_n_t, _TAIL_M)
         tc = jnp.clip(jnp.where(treal, tails, 0), 0, n2 - 1)
         t_head = jnp.where(treal, head[tc], n2)

@@ -1,5 +1,5 @@
 """Test read-set generator CLI (reference analog: the shipped E. coli
-test read sets, SURVEY.md §4 fixtures / BASELINE.json:7,10).
+test read sets, SURVEY.md §4 fixtures).
 
 Writes a FASTQ read set plus the truth genome as FASTA, deterministic
 per seed, with the round-4 realism knobs: planted rRNA-operon/IS-style

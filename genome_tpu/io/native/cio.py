@@ -1,7 +1,8 @@
 """ctypes binding for the native FASTA/FASTQ parser (T0 fast path).
 
 Compiles genome_tpu/io/native/fastx_native.cpp on first use with g++
-(cached under ~/.cache/genome_tpu, keyed by source hash) and falls back to
+(cached in the checkout's git-ignored `.native_build/`, or under
+$GENOME_TPU_CACHE, keyed by source hash) and falls back to
 the pure-Python parser transparently if no toolchain is available —
 correctness never depends on the native path (same contract, CI-compared).
 """
@@ -30,9 +31,9 @@ _ERRORS = {
 
 
 def _cache_dir() -> str:
+    from genome_tpu.runtime import REPO_ROOT
     d = os.environ.get("GENOME_TPU_CACHE",
-                       os.path.join(os.path.expanduser("~"), ".cache",
-                                    "genome_tpu"))
+                       os.path.join(REPO_ROOT, ".native_build"))
     os.makedirs(d, exist_ok=True)
     return d
 

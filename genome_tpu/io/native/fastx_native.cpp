@@ -1,7 +1,7 @@
 // Native FASTA/FASTQ parser -> 2-bit-coded read matrix (T0 fast path).
 //
 // Reference analog: read ingestion on the JVM (SURVEY.md §2.1 R1). Host
-// parsing is the one genuinely CPU-bound stage of the TPU pipeline, so it
+// parsing is the one genuinely CPU-bound stage of the pipeline, so it
 // gets the native treatment: a single pass over the mmap'd/read file
 // buffer, branch-light, writing base codes (A=0 C=1 G=2 T=3, other=4)
 // directly into the caller-allocated [rows, L] matrix that feeds

@@ -1,5 +1,5 @@
 """Deterministic read simulator (SURVEY.md §4 fixtures; reference analog:
-the E. coli simulated test read sets, BASELINE.json:7,10).
+the E. coli simulated test read sets).
 
 Seeded numpy Generator end to end: same seed -> same genome/reads on any
 platform."""

@@ -1,265 +1,45 @@
-"""Pallas TPU kernel: streaming stream-compaction (SURVEY.md §2.4 T1).
+"""Stream compaction: keep the flagged elements of a stream, densely and in
+order (SURVEY.md §2.4 T1).
 
-Gathers flagged elements of a stream into a dense prefix, in order, with
-their source positions. This is the primitive XLA lacks on TPU: its
-scatter runs ~180 M elem/s, so compacting run heads out of an 88M-element
-sorted k-mer stream costs ~0.5 s — more than the sort itself. Here each
-tile compacts in VMEM via exclusive-rank + binary shifting (move every
-flagged element down by its gap, one power of two per stage — collision-
-free for monotone destinations; validated against brute force in
-tests/test_pallas_kernels.py) and appends to the output with chunk-
-aligned DMAs: the HBM cursor only ever advances in 1024-element chunks
-(TPU DMA slices must align to the (8,128) uint32 tile), and the sub-chunk
-remainder rides in a VMEM carry buffer across the sequential grid,
-spliced onto the next tile with dynamic rotates.
-
-Used by: k-mer RLE counting (run-head extraction), coverage filtering,
-and any place a "keep the marked ones, densely" step would otherwise be
-an XLA scatter.
+One exclusive prefix sum of the flags gives every flagged element its
+output slot; one scatter with unique indices writes it there. XLA lowers
+both as bandwidth-bound passes, so this is plain `jnp`. Used by k-mer RLE
+counting (run heads, coverage filter), graph build, the walk-based
+simplify passes, contig emission and the sharded programs (it is plain
+`jnp`, so it runs unchanged inside `shard_map`).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-LANES = 128
-TILE_ROWS = 256
-TILE = TILE_ROWS * LANES
-CROWS = 8  # carry rows: (8, 128) = one uint32 VMEM/DMA tile
-CHUNK = CROWS * LANES  # 1024: HBM cursor granularity
 
 I32 = jnp.int32
 
 
-def _flat_shift_down(x, d: int):
-    """y[i] = x[i + d] in row-major order (garbage in the last d slots)."""
-    R = x.shape[0]
-    dr, dc = d // LANES, d % LANES
-    a = pltpu.roll(x, R - dr, 0) if dr else x
-    if dc == 0:
-        return a
-    b = pltpu.roll(x, R - dr - 1, 0)
-    a = pltpu.roll(a, LANES - dc, 1)
-    b = pltpu.roll(b, LANES - dc, 1)
-    c = jax.lax.broadcasted_iota(I32, x.shape, 1)
-    return jnp.where(c + dc < LANES, a, b)
-
-
-def _flat_roll_up_dyn(x, rem):
-    """y[i] = x[i - rem] (wrapping) for a traced rem in [0, CHUNK)."""
-    dr = rem // LANES
-    dc = rem % LANES
-    a = pltpu.roll(x, dr, 0)
-    b = pltpu.roll(x, dr + 1, 0)
-    a = pltpu.roll(a, dc, 1)
-    b = pltpu.roll(b, dc, 1)
-    c = jax.lax.broadcasted_iota(I32, x.shape, 1)
-    return jnp.where(c >= dc, a, b)
-
-
-def _exclusive_rank(flags):
-    """Row-major exclusive prefix sum of 0/1 flags over (R, 128)."""
-    R = flags.shape[0]
-    x = flags
-    c = jax.lax.broadcasted_iota(I32, x.shape, 1)
-    for d in (1, 2, 4, 8, 16, 32, 64):
-        x = x + jnp.where(c >= d, pltpu.roll(x, d, 1), 0)
-    row_incl = x[:, LANES - 1 :]  # (R, 1) per-row totals
-    y = row_incl
-    r = jax.lax.broadcasted_iota(I32, y.shape, 0)
-    d = 1
-    while d < R:
-        y = y + jnp.where(r >= d, pltpu.roll(y, d, 0), 0)
-        d *= 2
-    row_excl = y - row_incl
-    return x - flags + row_excl
-
-
-def _compact_kernel(n_arr: int, cap_rows: int, *refs):
-    n_out = n_arr + 1  # carried arrays + positions
-    flags_ref = refs[0]
-    arr_refs = refs[1 : 1 + n_arr]
-    out_refs = refs[1 + n_arr : 1 + n_arr + n_out]
-    n_ref = refs[1 + n_arr + n_out]
-    stage = refs[2 + n_arr + n_out : 2 + n_arr + 2 * n_out]
-    carry = refs[2 + n_arr + 2 * n_out : 2 + n_arr + 3 * n_out]
-    state = refs[2 + n_arr + 3 * n_out]  # [0]=cur rows written, [1]=total
-    sem = refs[3 + n_arr + 3 * n_out]
-
-    t = pl.program_id(0)
-    nt = pl.num_programs(0)
-
-    @pl.when(t == 0)
-    def _():
-        state[0] = 0
-        state[1] = 0
-
-    flags = flags_ref[...].astype(I32)
-    rank = _exclusive_rank(flags)
-    r = jax.lax.broadcasted_iota(I32, flags.shape, 0)
-    c = jax.lax.broadcasted_iota(I32, flags.shape, 1)
-    idx = r * LANES + c
-    shift = idx - rank
-    pos = idx + t * TILE
-
-    vals = [a[...] for a in arr_refs] + [pos]
-    valid = flags  # 0/1 int32: Mosaic rotates 32-bit data only
-    d = 1
-    while d < TILE:
-        move = valid * ((shift & d) != 0)
-        lands = (_flat_shift_down(move, d) != 0) & (idx < TILE - d)
-        vals = [jnp.where(lands, _flat_shift_down(v, d), v) for v in vals]
-        shift = jnp.where(lands, _flat_shift_down(shift, d) - d, shift)
-        valid = jnp.where(lands, 1, valid * (1 - move))
-        d *= 2
-
-    cnt = jnp.sum(flags)
-    rem = state[1] % CHUNK
-    # splice: first `rem` slots from the carry buffer, then the tile's
-    # compacted values shifted up by rem (stage has CROWS slack rows)
-    sid = jax.lax.broadcasted_iota(
-        I32, (TILE_ROWS + CROWS, LANES), 0) * LANES + jax.lax.broadcasted_iota(
-        I32, (TILE_ROWS + CROWS, LANES), 1)
-    for s, cr, v in zip(stage, carry, vals):
-        ext = jnp.concatenate([v.astype(I32), jnp.zeros((CROWS, LANES), I32)])
-        rolled = _flat_roll_up_dyn(ext, rem)
-        carried = jnp.concatenate(
-            [cr[...].astype(I32),
-             jnp.zeros((TILE_ROWS, LANES), I32)])
-        s[...] = jnp.where(sid < rem, carried, rolled).astype(s.dtype)
-
-    avail = rem + cnt
-    nch = avail // CHUNK
-    cur = state[0]  # in CROWS-row units
-    room = jnp.maximum(cap_rows // CROWS - cur, 0)
-    nch_w = jnp.minimum(nch, room)
-
-    def body(i, _):
-        src = pl.ds(pl.multiple_of(i * CROWS, CROWS), CROWS)
-        dst = pl.ds(pl.multiple_of((cur + i) * CROWS, CROWS), CROWS)
-        copies = [pltpu.make_async_copy(s.at[src], o.at[dst], sem.at[w])
-                  for w, (s, o) in enumerate(zip(stage, out_refs))]
-        for cp in copies:
-            cp.start()
-        for cp in copies:
-            cp.wait()
-        return 0
-
-    jax.lax.fori_loop(0, nch_w, body, 0)
-
-    # stash the sub-chunk remainder back into the carry buffers
-    off = pl.multiple_of(nch * CROWS, CROWS)
-    for s, cr in zip(stage, carry):
-        cr[...] = s[pl.ds(off, CROWS)]
-
-    state[0] = cur + nch_w
-    state[1] = state[1] + cnt
-    n_ref[0] = state[1]
-
-    # final flush: one aligned chunk holding the remainder (+ garbage tail)
-    @pl.when((t == nt - 1) & (room > nch))
-    def _():
-        dst = pl.ds(pl.multiple_of((cur + nch_w) * CROWS, CROWS), CROWS)
-        copies = [pltpu.make_async_copy(cr, o.at[dst], sem.at[w])
-                  for w, (cr, o) in enumerate(zip(carry, out_refs))]
-        for cp in copies:
-            cp.start()
-        for cp in copies:
-            cp.wait()
-
-
-@functools.partial(jax.jit, static_argnames=("capacity", "interpret"))
-def compact_flagged(flags, arrays, capacity: int, interpret: bool = False):
+def compact(flags, arrays, capacity: int):
     """Dense, in-order extraction of flagged stream elements.
 
     Args:
-      flags: int32/bool (n,), n % TILE == 0 (pad with zeros).
-      arrays: tuple of uint32/int32 (n,) carried values.
-      capacity: output size, % CHUNK == 0. If the flagged count exceeds
-        capacity - CHUNK the tail is dropped and `overflow` is set
-        (conservative by up to one chunk; retry bigger).
+      flags: bool/int (n,) marks; nonzero = keep.
+      arrays: tuple of (n,) carried arrays (any dtype).
+      capacity: static output size.
 
-    Returns (outs tuple, pos, n, overflow): outs[i][:n] = arrays[i] at
-    flagged positions (ascending), pos[:n] = those positions, n = total
-    flagged count (may exceed capacity when overflow). Slots >= n are
-    uninitialized garbage — always mask downstream.
+    Returns (outs, pos, total, overflow): outs[i][:total] = arrays[i] at
+    the flagged positions (ascending), pos[:total] = those positions
+    (int32), total = flagged count (int32, may exceed capacity),
+    overflow = total > capacity. When overflowing, the first `capacity`
+    flagged elements are kept. Slots past total hold 0.
     """
-    n = flags.shape[0]
-    assert n % TILE == 0, n
-    assert capacity % CHUNK == 0, capacity
-    nt = n // TILE
-    n_arr = len(arrays)
-    cap_rows = capacity // LANES
-    dtypes = [a.dtype for a in arrays] + [I32]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(nt,),
-        in_specs=[pl.BlockSpec((TILE_ROWS, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)
-                  for _ in range(1 + n_arr)],
-        out_specs=(
-            [pl.BlockSpec(memory_space=pl.ANY)
-             for _ in range(n_arr + 1)]
-            + [pl.BlockSpec(memory_space=pltpu.SMEM)]
-        ),
-        scratch_shapes=(
-            [pltpu.VMEM((TILE_ROWS + CROWS, LANES), dt) for dt in dtypes]
-            + [pltpu.VMEM((CROWS, LANES), dt) for dt in dtypes]
-            + [pltpu.SMEM((2,), I32),
-               pltpu.SemaphoreType.DMA((n_arr + 1,))]
-        ),
-    )
-    outs = pl.pallas_call(
-        functools.partial(_compact_kernel, n_arr, cap_rows),
-        out_shape=(
-            [jax.ShapeDtypeStruct((cap_rows, LANES), dt) for dt in dtypes]
-            + [jax.ShapeDtypeStruct((1,), I32)]
-        ),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(flags.astype(I32).reshape(nt * TILE_ROWS, LANES),
-      *[a.reshape(nt * TILE_ROWS, LANES) for a in arrays])
-    *arr_outs, pos, n_out = outs
-    total = n_out[0]
-    overflow = total > capacity - CHUNK
-    return (tuple(o.reshape(-1) for o in arr_outs), pos.reshape(-1),
-            total, overflow)
-
-
-def compact_flagged_auto(flags, arrays, capacity: int):
-    """Interpret-mode fallback off TPU (CI runs on CPU)."""
-    on_tpu = jax.devices()[0].platform == "tpu"
-    return compact_flagged(flags, tuple(arrays), capacity,
-                           interpret=not on_tpu)
-
-
-def compact_ids(flags, M: int):
-    """Positions of set flags, compacted to an M-slot id buffer (in order).
-
-    Returns (ids[M] int32 — garbage beyond the real count, n (int32),
-    overflow). TPU uses the Pallas stream compactor; elsewhere a
-    cumsum+scatter fallback (CI runs on CPU). Shared by the walk-based
-    simplify passes and device-side contig emission.
-    """
-    n = flags.shape[0]
-    from genome_tpu.kernels.count import _on_tpu
-    if _on_tpu():
-        npad = -(-n // TILE) * TILE
-        f = flags if npad == n else jnp.concatenate(
-            [flags, jnp.zeros((npad - n,), jnp.bool_)])
-        cap = -(-M // CHUNK) * CHUNK + CHUNK
-        _, pos, total, _ = compact_flagged(f, (), cap)
-        return pos[:M], total, total > M
-    idx = jnp.arange(n, dtype=I32)
-    dest = jnp.cumsum(flags.astype(I32)) - 1
-    scat = jnp.where(flags & (dest < M), dest, M)
-    ids = jnp.zeros((M,), dtype=I32).at[scat].set(idx, mode="drop")
-    total = flags.sum(dtype=I32)
-    return ids, total, total > M
+    # the scope name is how scripts/trace_count_build.py finds these ops
+    with jax.named_scope("compact"):
+        flags = flags.astype(jnp.bool_)
+        dest = jnp.cumsum(flags.astype(I32)) - 1
+        scat = jnp.where(flags & (dest < capacity), dest, capacity)
+        n = flags.shape[0]
+        pos = jnp.zeros((capacity,), I32).at[scat].set(
+            jnp.arange(n, dtype=I32), mode="drop")
+        outs = tuple(jnp.zeros((capacity,), a.dtype).at[scat].set(
+            a, mode="drop") for a in arrays)
+        total = dest[-1] + 1 if n else jnp.int32(0)
+        return outs, pos, total, total > capacity

@@ -1,13 +1,13 @@
 """T1: k-mer counting on device = sort + segmented reduce (SURVEY.md §2.4).
 
-This is the TPU-native replacement for the reference's `DNAMap`
-open-addressing insert loop (BASELINE.json:5): instead of random-probe
-hash inserts (DRAM-latency-bound), the whole k-mer stream is sorted and
-counted by run-length encoding — streaming, HBM-bandwidth-bound work.
+This replaces the reference's `DNAMap` open-addressing insert loop:
+instead of random-probe hash inserts (memory-latency-bound), the whole
+k-mer stream is sorted and counted by run-length encoding — streaming,
+bandwidth-bound work.
 
-Correctness path uses XLA's lax.sort (two-key lexicographic on the uint32
-pair); faster sorters (kernels.sort_bucket / Pallas) drop in via the
-`sorter` hook. Sorter contract: equal keys adjacent, non-sentinel keys in
+The default path uses XLA's lax.sort (two-key lexicographic on the uint32
+pair); other sorters (kernels.sort_bucket) drop in via the `sorter`
+hook. Sorter contract: equal keys adjacent, non-sentinel keys in
 ascending order; SENTINEL slots may appear anywhere (bucket sorters leave
 sentinel-padded holes between regions) — the RLE pass filters them by
 value, which is safe because (0xFFFFFFFF, 0xFFFFFFFF) can never be a
@@ -25,16 +25,10 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from genome_tpu.kernels.compact import compact
 from genome_tpu.kernels.extract import SENTINEL
 
 U32 = jnp.uint32
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
 
 
 def sort_pairs_xla(hi: jax.Array, lo: jax.Array, *extra):
@@ -82,25 +76,17 @@ def count_weighted(
         (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1]),
     ])
     run_id = jnp.cumsum(first.astype(jnp.int32)) - 1
-    n_runs_total = first.sum(dtype=jnp.int32)
-    overflow = n_runs_total > capacity
-
     counts = jax.ops.segment_sum(sw.astype(U32), run_id,
                                  num_segments=capacity)
-    scatter_idx = jnp.where(first, run_id, capacity)
-    run_hi = jnp.zeros((capacity,), dtype=U32).at[scatter_idx].set(shi, mode="drop")
-    run_lo = jnp.zeros((capacity,), dtype=U32).at[scatter_idx].set(slo, mode="drop")
+    (run_hi, run_lo), _, n_runs_total, overflow = compact(
+        first, (shi, slo), capacity)
 
     ridx = jnp.arange(capacity, dtype=jnp.int32)
     valid = ((ridx < n_runs_total) & (run_hi != SENTINEL)
              & (counts >= jnp.asarray(min_coverage, U32)))
     # compact surviving runs to the front (stays sorted: stable positions)
-    dest = jnp.cumsum(valid.astype(jnp.int32)) - 1
-    out_idx = jnp.where(valid, dest, capacity)
-    table_hi = jnp.zeros((capacity,), dtype=U32).at[out_idx].set(run_hi, mode="drop")
-    table_lo = jnp.zeros((capacity,), dtype=U32).at[out_idx].set(run_lo, mode="drop")
-    out_counts = jnp.zeros((capacity,), dtype=U32).at[out_idx].set(counts, mode="drop")
-    n_unique = valid.sum(dtype=jnp.int32)
+    (table_hi, table_lo, out_counts), _, n_unique, _ = compact(
+        valid, (run_hi, run_lo, counts), capacity)
     return dict(table_hi=table_hi, table_lo=table_lo, counts=out_counts,
                 n_unique=n_unique, overflow=overflow)
 
@@ -117,7 +103,7 @@ def count_kmers_device(
 
     Fast path for the raw window stream: sorts only the (hi, lo) key pair
     (no all-ones weight array rides through the sort — a third sort operand
-    costs real bandwidth at VPU-bound sort rates) and derives run counts
+    is one more word through every sort pass) and derives run counts
     from head-position differences instead of a segment_sum scatter-add.
     Position-diff counting is hole-safe under the sorter contract: a
     SENTINEL padding region always starts its own run, so the last real run
@@ -132,15 +118,6 @@ def count_kmers_device(
         z = jnp.zeros((capacity,), dtype=U32)
         return dict(table_hi=z, table_lo=z, counts=z,
                     n_unique=jnp.int32(0), overflow=jnp.bool_(False))
-    use_pallas = _on_tpu()
-    if use_pallas:
-        from genome_tpu.kernels.compact import TILE
-        m_pad = -(-m // TILE) * TILE
-        if m_pad != m:
-            fill = jnp.full((m_pad - m,), SENTINEL, dtype=U32)
-            hi = jnp.concatenate([hi, fill])
-            lo = jnp.concatenate([lo, fill])
-        m = m_pad
     if sorter is None:
         shi, slo = jax.lax.sort((hi, lo), num_keys=2)
     else:
@@ -151,63 +128,22 @@ def count_kmers_device(
         (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1]),
     ])
     ridx = jnp.arange(capacity, dtype=jnp.int32)
-    if use_pallas:
-        # run heads via the Pallas streaming compactor: no stream-sized
-        # scatter, no cumsum (kernels/compact.py rationale)
-        from genome_tpu.kernels.compact import CHUNK, compact_flagged
-        cap_pad = (-(-capacity // CHUNK)) * CHUNK + CHUNK
-        (run_hi, run_lo), pos, n_runs_total, _ = compact_flagged(
-            first, (shi, slo), cap_pad)
-        run_hi, run_lo = run_hi[:capacity], run_lo[:capacity]
-        starts = pos[:capacity]
-        in_range = ridx < n_runs_total
-        ends_roll = jnp.concatenate([starts[1:], jnp.full((1,), m, jnp.int32)])
-        ends = jnp.where(ridx + 1 < n_runs_total, ends_roll, m)
-        counts = jnp.where(in_range, ends - starts, 0).astype(U32)
-        run_hi = jnp.where(in_range, run_hi, 0)
-        run_lo = jnp.where(in_range, run_lo, 0)
-    else:
-        run_id = jnp.cumsum(first.astype(jnp.int32)) - 1
-        n_runs_total = run_id[-1] + 1
-        idx = jnp.arange(m, dtype=jnp.int32)
-        scatter_idx = jnp.where(first, run_id, capacity)
-        starts = jnp.full((capacity,), m, dtype=jnp.int32).at[
-            scatter_idx].set(idx, mode="drop")
-        ends = jnp.concatenate([starts[1:], jnp.full((1,), m, jnp.int32)])
-        in_range = ridx < n_runs_total
-        counts = jnp.where(in_range, ends - starts, 0).astype(U32)
-        # keys by GATHER from head positions: a capacity-sized gather beats
-        # a stream-sized scatter ~8x on TPU (BENCH.md gather/scatter rates)
-        pos_c = jnp.minimum(starts, m - 1)
-        run_hi = jnp.where(in_range, shi[pos_c], 0)
-        run_lo = jnp.where(in_range, slo[pos_c], 0)
-    overflow = n_runs_total > capacity
+    # run heads by position; a run's count is the distance to the next head
+    _, starts, n_runs_total, overflow = compact(first, (), capacity)
+    in_range = ridx < n_runs_total
+    ends_next = jnp.concatenate([starts[1:], jnp.full((1,), m, jnp.int32)])
+    ends = jnp.where(ridx + 1 < n_runs_total, ends_next, m)
+    counts = jnp.where(in_range, ends - starts, 0).astype(U32)
+    # keys by a capacity-sized gather from the head positions (no
+    # stream-sized key scatter)
+    pos_c = jnp.minimum(starts, m - 1)
+    run_hi = jnp.where(in_range, shi[pos_c], 0)
+    run_lo = jnp.where(in_range, slo[pos_c], 0)
 
     valid = (in_range & (run_hi != SENTINEL)
              & (counts >= jnp.asarray(min_coverage, U32)))
-    if use_pallas:
-        from genome_tpu.kernels.compact import TILE, compact_flagged
-        fpad = -(-capacity // TILE) * TILE - capacity
-        vflags = jnp.concatenate(
-            [valid, jnp.zeros((fpad,), jnp.bool_)]) if fpad else valid
-        zp = jnp.zeros((fpad,), U32)
-        (th, tl, tc), _, n_unique, _ = compact_flagged(
-            vflags,
-            tuple(jnp.concatenate([a, zp]) if fpad else a
-                  for a in (run_hi, run_lo, counts)),
-            cap_pad)
-        keep = ridx < n_unique
-        table_hi = jnp.where(keep, th[:capacity], 0)
-        table_lo = jnp.where(keep, tl[:capacity], 0)
-        out_counts = jnp.where(keep, tc[:capacity], 0)
-    else:
-        dest = jnp.cumsum(valid.astype(jnp.int32)) - 1
-        out_idx = jnp.where(valid, dest, capacity)
-        z = jnp.zeros((capacity,), dtype=U32)
-        table_hi = z.at[out_idx].set(run_hi, mode="drop")
-        table_lo = z.at[out_idx].set(run_lo, mode="drop")
-        out_counts = z.at[out_idx].set(counts, mode="drop")
-        n_unique = valid.sum(dtype=jnp.int32)
+    (table_hi, table_lo, out_counts), _, n_unique, _ = compact(
+        valid, (run_hi, run_lo, counts), capacity)
     return dict(table_hi=table_hi, table_lo=table_lo, counts=out_counts,
                 n_unique=n_unique, overflow=overflow)
 
@@ -219,16 +155,10 @@ def filter_table(t: dict, min_coverage):
     ridx = jnp.arange(cap, dtype=jnp.int32)
     valid = ((ridx < t["n_unique"])
              & (t["counts"] >= jnp.asarray(min_coverage, U32)))
-    dest = jnp.cumsum(valid.astype(jnp.int32)) - 1
-    out_idx = jnp.where(valid, dest, cap)
-    z = jnp.zeros((cap,), dtype=U32)
-    return dict(
-        table_hi=z.at[out_idx].set(t["table_hi"], mode="drop"),
-        table_lo=z.at[out_idx].set(t["table_lo"], mode="drop"),
-        counts=z.at[out_idx].set(t["counts"], mode="drop"),
-        n_unique=valid.sum(dtype=jnp.int32),
-        overflow=t["overflow"],
-    )
+    (th, tl, tc), _, n_unique, _ = compact(
+        valid, (t["table_hi"], t["table_lo"], t["counts"]), cap)
+    return dict(table_hi=th, table_lo=tl, counts=tc, n_unique=n_unique,
+                overflow=t["overflow"])
 
 
 @functools.partial(jax.jit, static_argnames=("capacity",))

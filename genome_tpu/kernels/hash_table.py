@@ -1,5 +1,5 @@
 """T1 alternative: batched open-addressing HBM hash table counting
-(BASELINE.json:5 "or cuckoo-style HBM table"; SURVEY.md §2.4).
+(a cuckoo-style table in device memory; SURVEY.md §2.4).
 
 This is the direct structural analog of the reference's `DNAMap`
 open-addressing hashmap, reformulated for a SIMD machine with no atomics:

@@ -1,13 +1,11 @@
 """T1: bucket-partition sort for (hi, lo) k-mer keys (SURVEY.md §2.4).
 
-Why: XLA's global comparator sort is O(n log^2 n) passes and measures ~25x
-below the HBM roofline for the counting workload on TPU. Sorting k-mer
-keys doesn't need a general sort: partition the stream into B
-value-ordered buckets (top bits of the key), then sort each bucket
-independently while it fits in VMEM. The partition needs only cheap
-per-row sorts (rows live in VMEM), one histogram, and one unique-index
-scatter; the per-bucket sorts are batched small sorts. HBM traffic is
-O(1) passes + the small sorts instead of O(log^2 n) global passes.
+Sorting k-mer keys doesn't need one global sort: partition the stream into
+B value-ordered buckets (top bits of the key), then sort each bucket
+independently. The partition needs only small per-row sorts, one
+histogram, and one unique-index scatter; the per-bucket sorts are batched
+small sorts. Whether this beats XLA's global sort on a device is a
+measurement (the `--counter bucket` engine).
 
 Output contract (kernels.count sorter contract): non-sentinel keys in
 globally ascending order, equal keys adjacent; SENTINEL-padded holes may
@@ -82,7 +80,7 @@ def bucket_partition_sort(hi, lo, w, k: int, bucket_bits: int = 10,
     # sort after real keys per row and are simply dropped by the scatter
     is_sent = (hi == SENTINEL) & (lo == SENTINEL)
     b = jnp.where(is_sent, B, b)
-    # per-row stable sort by bucket (rows are VMEM-resident small sorts)
+    # per-row stable sort by bucket (small batched sorts)
     sb, sh, sl, sw = jax.lax.sort(
         (b.reshape(T, row), hi.reshape(T, row), lo.reshape(T, row),
          w.reshape(T, row)), dimension=1, num_keys=1)
@@ -114,7 +112,7 @@ def bucket_partition_sort(hi, lo, w, k: int, bucket_bits: int = 10,
     out_w = jnp.zeros((big,), dtype=w.dtype).at[dest].set(
         sw.reshape(-1), mode="drop", unique_indices=True)
 
-    # independent per-bucket sorts (batched; each bucket region <= VMEM-ish)
+    # independent per-bucket sorts (batched)
     oh, ol, ow = jax.lax.sort(
         (out_hi.reshape(B, seg), out_lo.reshape(B, seg),
          out_w.reshape(B, seg)), dimension=1, num_keys=2)

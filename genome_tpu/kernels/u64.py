@@ -1,6 +1,7 @@
-"""64-bit k-mer arithmetic as uint32 pairs, for TPU (SEMANTICS.md §1).
+"""64-bit k-mer arithmetic as uint32 pairs (SEMANTICS.md §1).
 
-TPU has no native int64; everything here is (hi, lo) uint32 pairs with the
+Device code runs without JAX's 64-bit mode, so everything here is (hi, lo)
+uint32 pairs with the
 packed k-mer value `hi * 2^32 + lo`. All shift amounts are Python ints
 (static under jit). Mirrors genome_tpu.utils.dna uint64 host ops.
 """

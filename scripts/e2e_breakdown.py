@@ -12,14 +12,12 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_comp"))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
+from genome_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 
 from genome_tpu.graph.build import build_graph_device
 from genome_tpu.graph.contigs import emit_contigs

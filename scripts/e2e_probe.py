@@ -1,6 +1,6 @@
 """Probe the e2e wall's components on the real chip: host pack, host->
 device transfer bandwidth, extraction dispatch, and the contigs phase's
-internals (final_chain_state vs emit vs host decode). Run on TPU."""
+internals (final_chain_state vs emit vs host decode). Run on the GPU."""
 
 import os
 import sys
@@ -9,14 +9,12 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_comp"))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
+from genome_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 
 
 def t(label, f, reps=2):

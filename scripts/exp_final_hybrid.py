@@ -1,17 +1,17 @@
-"""Final-phase probe: can ruler ranking's phase 1 go below ~0.65 s at
-bench scale? Two candidates vs production, on the REAL post-simplify
+"""Final-phase probe: can ruler ranking's phase 1 get faster at bench
+scale? Two candidates vs production, on the REAL post-simplify
 graph state (not synthetic chains):
 
 A. production `_rank_rulers` (stride 16, packed, early-exit while_loop)
 B. hybrid: first `PRE` doubling rounds UNROLLED (they always run —
    min rounds ≈ log2(mean ruler gap) ≈ 4), while_loop for the tail.
-   Round 3 measured the FULLY unrolled variant 1.6x WORSE because it
-   pays rounds that never run; the hybrid only unrolls rounds that do.
+   The FULLY unrolled variant pays rounds that never run; the hybrid
+   only unrolls rounds that do.
 C. stride-8 scheme point at scale 1 (fewer phase-1 rounds, 2x phase-2
    arrays — measures the stride tradeoff directly on real data).
 
 Every variant's (head, dist) is asserted equal to production's. Prints
-'[fin]' lines; record the outcome in BENCH.md either way.
+'[fin]' lines; record the outcome in PERF.md either way.
 """
 
 import os
@@ -20,8 +20,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_comp"))
 
 import numpy as np
 
@@ -47,8 +45,8 @@ def main() -> int:
 
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from genome_tpu.runtime import enable_compile_cache
+    enable_compile_cache()
 
     from genome_tpu.assemble.pipeline import run_pipeline, count_reads, \
         simplify_with_metrics

@@ -8,16 +8,13 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_comp"))
-os.makedirs(os.environ["JAX_COMPILATION_CACHE_DIR"], exist_ok=True)
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
+from genome_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 
 from genome_tpu.graph.build import build_graph_device
 from genome_tpu.kernels.count import count_kmers_device

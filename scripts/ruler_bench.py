@@ -1,5 +1,5 @@
 """Compare ruler-ranking variants for final_chain_state at bench scale on
-the real graph (count -> build -> simplify first). TPU.
+the real graph (count -> build -> simplify first). Run on the GPU.
 
 Times (with REAL scalar-forced syncs):
   A. _rank_rulers (while_loop, production)
@@ -15,14 +15,12 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_comp"))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
+from genome_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 
 
 def timeit(label, f, reps=3):

@@ -112,7 +112,7 @@ def test_checkpoint_ignored_on_shard_count_change(fastq, tmp_path):
 
 
 def test_checkpoint_ignored_on_topology_or_input_change(tmp_path):
-    """ADVICE r4: resume must reject a changed device topology (owner
+    """Resume must reject a changed device topology (owner
     hashing is per device) or a modified input read stream, both of which
     pass the params/num_shards checks."""
     from genome_tpu.assemble.checkpoint import PhaseCheckpointer, input_digest

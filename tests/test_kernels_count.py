@@ -8,6 +8,7 @@ from genome_tpu.golden import count_canonical_kmers
 from genome_tpu.io import random_genome, simulate_reads
 from genome_tpu.kernels import count_kmers_device, extract_canonical_kmers, pack_reads
 from genome_tpu.kernels import u64
+from genome_tpu.kernels.extract import SENTINEL
 from genome_tpu.utils import dna
 
 
@@ -169,3 +170,62 @@ def test_packed_extract_matches_unpacked():
         eh, el = extract_canonical_kmers(jnp.asarray(codes), k)
         assert (np.asarray(ph) == np.asarray(eh)).all()
         assert (np.asarray(pl) == np.asarray(el)).all()
+
+
+def _unique_oracle(hi, lo, mincov=1):
+    """np.unique reference for count_kmers_device (sentinels dropped)."""
+    keys = u64.to_u64_np(hi, lo)
+    keys = keys[~((hi == SENTINEL) & (lo == SENTINEL))]
+    uk, uc = np.unique(keys, return_counts=True)
+    keep = uc >= mincov
+    return uk[keep], uc[keep]
+
+
+def _check_count(hi, lo, mincov=1, capacity=None):
+    import jax.numpy as jnp
+    res = count_kmers_device(jnp.asarray(hi), jnp.asarray(lo), mincov,
+                             capacity=capacity or hi.size)
+    assert not bool(res["overflow"])
+    n = int(res["n_unique"])
+    exp_k, exp_c = _unique_oracle(hi, lo, mincov)
+    assert n == exp_k.size
+    got = u64.to_u64_np(np.asarray(res["table_hi"])[:n],
+                        np.asarray(res["table_lo"])[:n])
+    assert np.array_equal(got, exp_k)
+    assert np.array_equal(np.asarray(res["counts"])[:n], exp_c)
+    # slots past n_unique are zero
+    assert not np.asarray(res["counts"])[n:].any()
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 3, 4, 5, 8, 11])
+def test_count_device_matches_np_unique(nblocks):
+    # streams of 512-element blocks: odd and non-power-of-two lengths
+    rng = np.random.default_rng(nblocks)
+    n = nblocks * 512
+    hi = rng.integers(0, 1 << 10, size=n, dtype=np.uint32)
+    lo = rng.integers(0, 1 << 12, size=n, dtype=np.uint32)
+    _check_count(hi, lo)
+
+
+def test_count_device_with_sentinels():
+    rng = np.random.default_rng(9)
+    n = 3 * 512
+    hi = rng.integers(0, 1 << 10, size=n, dtype=np.uint32)
+    lo = rng.integers(0, 1 << 31, size=n, dtype=np.uint32)
+    hi[::7] = SENTINEL
+    lo[::7] = SENTINEL
+    _check_count(hi, lo)
+
+
+def test_count_device_duplicates_and_ties():
+    # heavy ties on hi, few distinct keys: long runs
+    rng = np.random.default_rng(10)
+    n = 6 * 512
+    hi = rng.integers(0, 4, size=n, dtype=np.uint32)
+    lo = rng.integers(0, 8, size=n, dtype=np.uint32)
+    _check_count(hi, lo, mincov=50, capacity=64)
+
+
+def test_count_device_all_sentinel():
+    s = np.full(1024, SENTINEL, np.uint32)
+    _check_count(s, s, capacity=16)

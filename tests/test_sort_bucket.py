@@ -74,3 +74,53 @@ def test_bucket_sort_all_sentinel_and_empty():
     s = jnp.full((1024,), SENTINEL, jnp.uint32)
     res = count_kmers_bucket(s, s, 1, capacity=64, k=21, row=256)
     assert int(res["n_unique"]) == 0 and not bool(res["overflow"])
+
+
+def _np_count(hi, lo):
+    keys = u64.to_u64_np(hi, lo)
+    return np.unique(keys[hi != SENTINEL], return_counts=True)
+
+
+def _check_bucket(hi, lo, k, **kw):
+    import jax.numpy as jnp
+    res = count_kmers_bucket(jnp.asarray(hi), jnp.asarray(lo), 1,
+                             capacity=hi.size, k=k, **kw)
+    assert not bool(res["overflow"])
+    n = int(res["n_unique"])
+    uk, uc = _np_count(hi, lo)
+    assert n == uk.size
+    got = u64.to_u64_np(np.asarray(res["table_hi"])[:n],
+                        np.asarray(res["table_lo"])[:n])
+    assert np.array_equal(got, uk)
+    assert np.array_equal(np.asarray(res["counts"])[:n], uc)
+
+
+def test_count_bucket_skewed_keys():
+    # 90% of the keys in the lowest 1/64 of the key space
+    rng = np.random.default_rng(31)
+    k, n = 21, 8192
+    top = 1 << (2 * k - 32)
+    hi = np.where(rng.random(n) < 0.9, 0,
+                  rng.integers(0, top, size=n)).astype(np.uint32)
+    lo = rng.integers(0, 1 << 16, size=n, dtype=np.uint32)
+    _check_bucket(hi, lo, k, bucket_bits=6, row=256, seg=8192)
+
+
+def test_count_bucket_all_keys_in_one_bucket():
+    rng = np.random.default_rng(32)
+    k, n = 21, 4096
+    hi = np.zeros(n, np.uint32)
+    lo = rng.integers(0, 1 << 10, size=n, dtype=np.uint32)
+    _check_bucket(hi, lo, k, bucket_bits=4, row=256, seg=4096)
+
+
+def test_count_bucket_overflow_flag():
+    # every key lands in bucket 0; a per-bucket region far smaller than
+    # the stream must raise the overflow flag, not truncate silently
+    import jax.numpy as jnp
+    n = 4096
+    z = jnp.zeros((n,), jnp.uint32)
+    lo = jnp.arange(n, dtype=jnp.uint32)
+    res = count_kmers_bucket(z, lo, 1, capacity=n, k=21, bucket_bits=4,
+                             row=256, seg=256)
+    assert bool(res["overflow"])
